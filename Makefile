@@ -1,4 +1,4 @@
-# Top-level entry points for qpalm_tpu.
+# Top-level entry points for qpalm_jax.
 #
 # `make ci` is the committed CI gate (VERDICT r4 missing #2 — the
 # reference runs ctest with coverage on every push via

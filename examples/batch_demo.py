@@ -1,7 +1,7 @@
 """Batched solves demo: thousands of QPs per chip with one vmapped program.
 
-The TPU-native workload the single-threaded reference cannot express
-(SURVEY.md §2.4); on a TPU use Settings(dtype="float32") for MXU speed.
+The accelerator workload the single-threaded reference cannot express
+(SURVEY.md §2.4); on a GPU use Settings(dtype="float32") for speed.
 Run: python examples/batch_demo.py
 """
 
@@ -13,8 +13,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from qpalm_tpu import Settings
-from qpalm_tpu.batch import solve_batch_escalate
+from qpalm_jax import Settings
+from qpalm_jax.batch import solve_batch_escalate
 
 rng = np.random.default_rng(0)
 problems = []

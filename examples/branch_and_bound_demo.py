@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from qpalm_tpu import QPALM, Settings, constants as C
+from qpalm_jax import QPALM, Settings, constants as C
 
 rng = np.random.default_rng(7)
 n, k = 10, 3

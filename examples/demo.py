@@ -1,7 +1,7 @@
 """Basic demo: setup -> solve -> warm start -> parametric update re-solve.
 
 Port of the reference demos (examples/qpalm_demo.c and
-interfaces/python/qpalm_python_demo.py) onto the qpalm_tpu API.
+interfaces/python/qpalm_python_demo.py) onto the qpalm_jax API.
 Run: python examples/demo.py
 """
 
@@ -16,7 +16,7 @@ jax.config.update("jax_platforms", "cpu")  # single f64 solves: CPU is fastest
 
 import numpy as np
 
-from qpalm_tpu import QPALM, Settings
+from qpalm_jax import QPALM, Settings
 
 # the reference python demo problem (qpalm_python_demo.py:11-24)
 Q = np.array([[1.0, -1.0, 0.0], [-1.0, 2.0, 0.0], [0.0, 0.0, 0.0]])

@@ -1,9 +1,9 @@
 """Multi-device demo: the three distribution modes over a device mesh.
 
-Runs on CPU with 8 virtual devices so no TPU slice is needed — the same
-code paths the driver's `dryrun_multichip` validates and that scale to a
-real multi-chip mesh unchanged (XLA_FLAGS below is how the virtual mesh is
-created; on a real slice just drop it).
+Runs on CPU with 8 virtual devices so no GPUs are needed — the same
+code paths `__graft_entry__.dryrun_multichip` validates and that run on a
+real multi-GPU mesh unchanged (XLA_FLAGS below is how the virtual mesh is
+created; on real GPUs just drop it).
 
 Run: python examples/distributed_demo.py
 """
@@ -21,16 +21,16 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-from qpalm_tpu import Settings
-from qpalm_tpu.api import pad_problem
-from qpalm_tpu.batch import stack_problems
-from qpalm_tpu.parallel import (
+from qpalm_jax import Settings
+from qpalm_jax.api import pad_problem
+from qpalm_jax.batch import stack_problems
+from qpalm_jax.parallel import (
     default_mesh,
     solve_batch_sharded,
     solve_constraint_sharded,
 )
-from qpalm_tpu.parallel.block_tridiag import spike_solve, thomas_solve
-from qpalm_tpu.types import QPData
+from qpalm_jax.parallel.block_tridiag import spike_solve, thomas_solve
+from qpalm_jax.types import QPData
 
 mesh = default_mesh(axis_name="qp")
 print(f"mesh: {mesh.shape} over {jax.devices()[0].platform}")

@@ -16,7 +16,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from qpalm_tpu import Settings, solve
+from qpalm_jax import Settings, solve
 
 rng = np.random.default_rng(42)
 n = 10

@@ -23,7 +23,7 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import scipy.sparse as sp
 
-from qpalm_tpu import QPALM, Settings, solve_sparse_auto
+from qpalm_jax import QPALM, Settings, solve_sparse_auto
 
 rng = np.random.default_rng(0)
 

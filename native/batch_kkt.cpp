@@ -1,5 +1,5 @@
 // Batched symmetric-indefinite KKT solves for the f64 polish — the hot
-// host-side operation of the certified-accuracy pipeline (qpalm_tpu/
+// host-side operation of the certified-accuracy pipeline (qpalm_jax/
 // polish.py).  numpy's batched np.linalg.solve runs LU (dgetrf, 2/3 nk^3
 // FLOPs); the polish KKT matrix is symmetric (quasi-definite), so
 // Bunch-Kaufman dsytrf (1/3 nk^3) + dsytrs does the same job with half
@@ -9,15 +9,9 @@
 // (B, nk, nk); reinterpreted column-major this is K^T, which equals K by
 // symmetry, so the buffers are handed to LAPACK as-is with uplo='L'.
 // Factors overwrite K in place; ipiv (B, nk) must be kept for re-solves.
-//
-// LAPACK is swappable at runtime like the supernodal backend's BLAS
-// (bkkt_use_lapack): the scipy wheel's OpenBLAS exports `scipy_`-prefixed
-// LP64 symbols and is much faster than the system reference LAPACK.
 
-#include <string>
+#include <cstddef>
 #include <vector>
-
-#include <dlfcn.h>
 
 extern "C" {
 void dsytrf_(const char *, const int *, double *, const int *, int *,
@@ -28,39 +22,6 @@ void ssytrf_(const char *, const int *, float *, const int *, int *,
              float *, const int *, int *);
 void ssytrs_(const char *, const int *, const int *, const float *,
              const int *, const int *, float *, const int *, int *);
-}
-
-namespace {
-using dsytrf_t = decltype(&dsytrf_);
-using dsytrs_t = decltype(&dsytrs_);
-using ssytrf_t = decltype(&ssytrf_);
-using ssytrs_t = decltype(&ssytrs_);
-dsytrf_t p_dsytrf = &dsytrf_;
-dsytrs_t p_dsytrs = &dsytrs_;
-ssytrf_t p_ssytrf = &ssytrf_;
-ssytrs_t p_ssytrs = &ssytrs_;
-}  // namespace
-
-extern "C" int bkkt_use_lapack(const char *path) {
-  void *h = dlopen(path, RTLD_NOW | RTLD_LOCAL);
-  if (!h) return -1;
-  for (const char *pre : {"scipy_", ""}) {
-    auto trf = (dsytrf_t)dlsym(h, (std::string(pre) + "dsytrf_").c_str());
-    auto trs = (dsytrs_t)dlsym(h, (std::string(pre) + "dsytrs_").c_str());
-    auto strf = (ssytrf_t)dlsym(h, (std::string(pre) + "ssytrf_").c_str());
-    auto strs = (ssytrs_t)dlsym(h, (std::string(pre) + "ssytrs_").c_str());
-    if (trf && trs) {
-      p_dsytrf = trf;
-      p_dsytrs = trs;
-      if (strf && strs) {
-        p_ssytrf = strf;
-        p_ssytrs = strs;
-      }
-      return 0;
-    }
-  }
-  dlclose(h);
-  return -2;
 }
 
 // Factor every lane of K (B, nk, nk) in place and solve K x = rhs
@@ -79,14 +40,14 @@ extern "C" int bkkt_factor_solve(int B, int nk, double *K, int *ipiv,
       int *pv = ipiv + (size_t)b * nk;
       double *rb = rhs + (size_t)b * nk;
       int info = 0;
-      p_dsytrf("L", &nk, Kb, &nk, pv, work.data(), &lwork, &info);
+      dsytrf_("L", &nk, Kb, &nk, pv, work.data(), &lwork, &info);
       if (info != 0) {
         fail[b] = 1;
         nfail++;
         continue;
       }
       fail[b] = 0;
-      p_dsytrs("L", &nk, &one, Kb, &nk, pv, rb, &nk, &info);
+      dsytrs_("L", &nk, &one, Kb, &nk, pv, rb, &nk, &info);
       if (info != 0) {
         fail[b] = 1;
         nfail++;
@@ -123,7 +84,7 @@ extern "C" int bkkt_factor_solve_f32(int B, int nk, const double *K,
       int *pv = ipiv + (size_t)b * nk;
       double *rb = rhs + (size_t)b * nk;
       int info = 0;
-      p_ssytrf("L", &nk, Fb, &nk, pv, work.data(), &lwork, &info);
+      ssytrf_("L", &nk, Fb, &nk, pv, work.data(), &lwork, &info);
       if (info != 0) {
         fail[b] = 1;
         nfail++;
@@ -131,7 +92,7 @@ extern "C" int bkkt_factor_solve_f32(int B, int nk, const double *K,
       }
       fail[b] = 0;
       for (int i = 0; i < nk; ++i) rf[i] = (float)rb[i];
-      p_ssytrs("L", &nk, &one, Fb, &nk, pv, rf.data(), &nk, &info);
+      ssytrs_("L", &nk, &one, Fb, &nk, pv, rf.data(), &nk, &info);
       if (info != 0) {
         fail[b] = 1;
         nfail++;
@@ -156,7 +117,7 @@ extern "C" int bkkt_resolve_f32(int B, int nk, const float *Kf,
       double *rb = rhs + (size_t)b * nk;
       for (int i = 0; i < nk; ++i) rf[i] = (float)rb[i];
       int info = 0;
-      p_ssytrs("L", &nk, &one, Kf + (size_t)b * nk * nk, &nk,
+      ssytrs_("L", &nk, &one, Kf + (size_t)b * nk * nk, &nk,
                ipiv + (size_t)b * nk, rf.data(), &nk, &info);
       if (info != 0) return -1;
       for (int i = 0; i < nk; ++i) rb[i] = (double)rf[i];
@@ -177,7 +138,7 @@ extern "C" int bkkt_resolve(int B, int nk, const double *K,
     for (int b = 0; b < B; ++b) {
       if (fail[b]) continue;
       int info = 0;
-      p_dsytrs("L", &nk, &one, K + (size_t)b * nk * nk, &nk,
+      dsytrs_("L", &nk, &one, K + (size_t)b * nk * nk, &nk,
                ipiv + (size_t)b * nk, rhs + (size_t)b * nk, &nk, &info);
       if (info != 0) return -1;
     }

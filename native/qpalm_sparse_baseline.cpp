@@ -66,7 +66,7 @@ struct Settings {
   int inner_max_iter = 100;
   int scaling = 10;
   // framework mode (NOT part of the reference-semantics baseline): the
-  // stagnation rescue of qpalm_tpu/host_sparse.py — when pri_res fails to
+  // stagnation rescue of qpalm_jax/host_sparse.py — when pri_res fails to
   // halve across 5 consecutive outer updates, escalate sigma globally by
   // delta.  Off (0) when this solver acts as the baseline comparator.
   int rescue = 0;

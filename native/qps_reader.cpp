@@ -1,9 +1,9 @@
-// Native QPS/MPS reader for qpalm_tpu.
+// Native QPS/MPS reader for qpalm_jax.
 //
 // C++ equivalent of the reference's two-pass C parser
 // (reference: interfaces/qps/src/qpalm_qps.c:71-540, index_hash.c), exposed
 // through a plain C ABI consumed from Python via ctypes
-// (qpalm_tpu/io/native.py).  Semantics match qpalm_tpu/io/qps.py exactly —
+// (qpalm_jax/io/native.py).  Semantics match qpalm_jax/io/qps.py exactly —
 // the Python parser is the fallback and the differential-test oracle.
 //
 // Build: see native/Makefile (g++ -O2 -shared -fPIC).

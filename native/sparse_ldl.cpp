@@ -1,4 +1,4 @@
-// Native sparse LDL' factorization: the TPU framework's equivalent of the
+// Native sparse LDL' factorization: the framework's equivalent of the
 // reference's LADEL backend (reference: src/solver_interface.c:319-405 uses
 // ladel_factorize_advanced_with_diag / ladel_dense_solve for the Schur
 // system M = Q + A' Sigma_act A with a 1/gamma diagonal shift).
@@ -14,7 +14,7 @@
 // chosen because refactorization at O(fill) beats pointer surgery on wide
 // vector hosts.
 //
-// Exposed via a C API for ctypes (qpalm_tpu/linalg/sparse_direct.py).
+// Exposed via a C API for ctypes (qpalm_jax/linalg/sparse_direct.py).
 // Fill-reducing ordering is the caller's job (the Python wrapper uses
 // reverse Cuthill-McKee and permutes the matrix before the symbolic call).
 

@@ -31,15 +31,12 @@
 // symbolic phase builds its own upper copy for the etree pass.  No
 // pivoting: the P-ALM Schur/KKT matrices this serves are quasi-definite
 // (positive definite after the 1/gamma shift), like the reference's LADEL
-// usage.  Exposed via a C API for ctypes (qpalm_tpu/linalg/sparse_direct.py).
+// usage.  Exposed via a C API for ctypes (qpalm_jax/linalg/sparse_direct.py).
 
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
-#include <string>
 #include <vector>
-
-#include <dlfcn.h>
 
 #include "etree_common.h"
 
@@ -55,44 +52,6 @@ void dtrsv_(const char *, const char *, const char *, const int *,
             const double *, const int *, double *, const int *);
 void daxpy_(const int *, const double *, const double *, const int *,
             double *, const int *);
-}
-
-namespace {
-
-// BLAS entry points, swappable at runtime (sldl_use_blas): the system
-// libblas.so.3 this links against is reference BLAS (~2 GFLOP/s dgemm);
-// the scipy/numpy wheels ship OpenBLAS with `scipy_`-prefixed LP64
-// symbols, which the Python wrapper hands us for an order-of-magnitude
-// faster panel update path.
-using dgemm_t = decltype(&dgemm_);
-using dgemv_t = decltype(&dgemv_);
-using dtrsv_t = decltype(&dtrsv_);
-using daxpy_t = decltype(&daxpy_);
-dgemm_t p_dgemm = &dgemm_;
-dgemv_t p_dgemv = &dgemv_;
-dtrsv_t p_dtrsv = &dtrsv_;
-daxpy_t p_daxpy = &daxpy_;
-
-}  // namespace
-
-extern "C" int sldl_use_blas(const char *path) {
-  void *h = dlopen(path, RTLD_NOW | RTLD_LOCAL);
-  if (!h) return -1;
-  for (const char *pre : {"scipy_", ""}) {
-    auto gemm = (dgemm_t)dlsym(h, (std::string(pre) + "dgemm_").c_str());
-    auto gemv = (dgemv_t)dlsym(h, (std::string(pre) + "dgemv_").c_str());
-    auto trsv = (dtrsv_t)dlsym(h, (std::string(pre) + "dtrsv_").c_str());
-    auto axpy = (daxpy_t)dlsym(h, (std::string(pre) + "daxpy_").c_str());
-    if (gemm && gemv && trsv && axpy) {
-      p_dgemm = gemm;
-      p_dgemv = gemv;
-      p_dtrsv = trsv;
-      p_daxpy = axpy;
-      return 0;
-    }
-  }
-  dlclose(h);
-  return -2;
 }
 
 namespace {
@@ -276,7 +235,7 @@ int factorize(SNLDL &S, const int *Ap, const int *Ai, const double *Ax,
       }
       // C (nr x nj) = W (nr x wd) * T' (wd x nj)
       const double one = 1.0, zero = 0.0;
-      p_dgemm("N", "T", &nr, &nj, &wd, &one, Fd + pd, &nd, T, &nj, &zero,
+      dgemm_("N", "T", &nr, &nj, &wd, &one, Fd + pd, &nd, T, &nj, &zero,
              Cb, &nr);
       // scatter-subtract into the target panel (rows ascending, so the
       // lower-triangular part of C starts at row jj of column jj)
@@ -306,7 +265,7 @@ int factorize(SNLDL &S, const int *Ap, const int *Ai, const double *Ax,
         const int len = ns - t;
         const double alpha = -ltj;
         // F(t:, t) -= F(t:, j) * (F(t,j)/dj)
-        p_daxpy(&len, &alpha, Fj + t, &ione, F + (int64_t)t * ns + t,
+        daxpy_(&len, &alpha, Fj + t, &ione, F + (int64_t)t * ns + t,
                &ione);
       }
       // scale column j below the diagonal into L entries
@@ -335,12 +294,12 @@ void solve(SNLDL &S, double *b) {
     const int ns = S.rp[s + 1] - S.rp[s];
     const int nb = ns - w;
     const double *F = S.values.data() + S.vp[s];
-    p_dtrsv("L", "N", "U", &w, F, &ns, b + c0, &ione);
+    dtrsv_("L", "N", "U", &w, F, &ns, b + c0, &ione);
     if (nb > 0) {
       if ((int)tmp.size() < nb) tmp.resize(nb);
       const double zero = 0.0;
       // tmp = L21 * z
-      p_dgemv("N", &nb, &w, &one, F + w, &ns, b + c0, &ione, &zero,
+      dgemv_("N", &nb, &w, &one, F + w, &ns, b + c0, &ione, &zero,
              tmp.data(), &ione);
       const int *rs = S.rows.data() + S.rp[s];
       for (int i = 0; i < nb; ++i) b[rs[w + i]] -= tmp[i];
@@ -358,10 +317,10 @@ void solve(SNLDL &S, double *b) {
       const int *rs = S.rows.data() + S.rp[s];
       for (int i = 0; i < nb; ++i) tmp[i] = b[rs[w + i]];
       // z -= L21' * x_below
-      p_dgemv("T", &nb, &w, &mone, F + w, &ns, tmp.data(), &ione, &one,
+      dgemv_("T", &nb, &w, &mone, F + w, &ns, tmp.data(), &ione, &one,
              b + c0, &ione);
     }
-    p_dtrsv("L", "T", "U", &w, F, &ns, b + c0, &ione);
+    dtrsv_("L", "T", "U", &w, F, &ns, b + c0, &ione);
   }
 }
 

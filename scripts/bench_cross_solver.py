@@ -48,9 +48,9 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from qpalm_tpu import Settings, baseline_c, solve
-    from qpalm_tpu.io.qps import load_qps
-    from qpalm_tpu.workloads import lasso, portfolio, random_qp
+    from qpalm_jax import Settings, baseline_c, solve
+    from qpalm_jax.io.qps import load_qps
+    from qpalm_jax.workloads import lasso, portfolio, random_qp
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cases = []
@@ -102,9 +102,9 @@ def main():
                  and (abs(f_ours - f_scipy) / scale < 1e-4 or not ok_scipy))
         rows.append({
             "case": name, "n": int(Qd.shape[0]), "m": int(Ad.shape[0]),
-            "f_qpalm_tpu": f_ours, "f_baseline_c": f_base,
+            "f_qpalm_jax": f_ours, "f_baseline_c": f_base,
             "f_scipy": f_scipy,
-            "t_qpalm_tpu_ms": round(t_ours * 1e3, 2),
+            "t_qpalm_jax_ms": round(t_ours * 1e3, 2),
             "t_baseline_c_ms": round(t_base * 1e3, 2),
             "t_scipy_ms": round(t_scipy * 1e3, 2),
             "objectives_agree": bool(agree),
@@ -120,17 +120,17 @@ def main():
         "NLP solver, gtol 1e-9) and the in-repo native C/LAPACK baseline.",
         "Single-problem sequential solves on CPU f64 at eps 1e-6 — the",
         "operating mode LEAST favourable to this framework (no batching);",
-        "the batched TPU numbers live in RESULTS_workloads.md / bench.py.",
+        "the batched device numbers come from bench.py.",
         "",
-        "| case | n | m | f* (qpalm_tpu) | f* (C baseline) | f* (scipy) |"
+        "| case | n | m | f* (qpalm_jax) | f* (C baseline) | f* (scipy) |"
         " t ours | t C | t scipy | agree |",
         "|---|---|---|---|---|---|---|---|---|---|"[:-4],
     ]
     for r in rows:
         lines.append(
             f"| {r['case']} | {r['n']} | {r['m']} | "
-            f"{r['f_qpalm_tpu']:.6e} | {r['f_baseline_c']:.6e} | "
-            f"{r['f_scipy']:.6e} | {r['t_qpalm_tpu_ms']} ms | "
+            f"{r['f_qpalm_jax']:.6e} | {r['f_baseline_c']:.6e} | "
+            f"{r['f_scipy']:.6e} | {r['t_qpalm_jax_ms']} ms | "
             f"{r['t_baseline_c_ms']} ms | {r['t_scipy_ms']} ms | "
             f"{'yes' if r['objectives_agree'] else 'NO'} |")
     lines.append("")

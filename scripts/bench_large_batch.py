@@ -1,14 +1,11 @@
 #!/usr/bin/env python
-"""Batched dense QPs across the fused-kernel wall: n_pad 320 -> 512
-(VERDICT r4 weak #7 / directive #8).
+"""Batched dense QPs at n_pad 320 -> 512.
 
-The fused VMEM kernel serves batched shapes to n_pad = 352
-(STREAM_WALL); single large problems n >= 512 ride the `large.py` MXU
-pipeline.  The in-between BATCHED regime (n_pad 384-448) routes to the
-same two-phase pipeline (f32 XLA while_loop whose masked Schur
-refactorization + batched Cholesky are MXU ops, then f64 host polish) —
-this bench measures that the throughput curve is CONTINUOUS across the
-wall: fused tier at 320/352, XLA-MXU tier at 384/448/512.
+Batched shapes between the small-problem fleets and the single large
+problems of `large.py` run the same two-phase pipeline (f32 XLA
+while_loop with a masked Schur refactorization + batched Cholesky per
+Newton step, then f64 host polish); this bench measures the throughput
+curve across those sizes.
 
 Workload: reference randomQP protocol scaled up
 (simulations/randomQP.m:22-47 semantics, 50% density, m = 1.5n), each
@@ -16,7 +13,7 @@ config solved as one batch, every solve f64-KKT-certified at eps 1e-6
 (`solve_large_dense` contract).  Median of `--reps` distinct perturbed
 batches; all rep times disclosed.
 
-Run on the real TPU: `python scripts/bench_large_batch.py`
+Run on the GPU: `python scripts/bench_large_batch.py`
 """
 
 import argparse
@@ -25,8 +22,6 @@ import os
 import statistics
 import sys
 import time
-
-os.environ.setdefault("QPALM_TPU_PALLAS", "0")
 
 import numpy as np
 
@@ -54,7 +49,7 @@ def main():
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
 
-    from qpalm_tpu.large import solve_large_dense
+    from qpalm_jax.large import solve_large_dense
 
     rows = []
     for cfg in args.configs.split(","):

@@ -15,12 +15,11 @@ import os
 import sys
 import time
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR", os.path.expanduser("~/.cache/jax_compilation")
-)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
+
+from qpalm_jax.io.cli import PLATFORMS, use_platform
 
 
 def main(argv=None):
@@ -28,15 +27,13 @@ def main(argv=None):
     ap.add_argument("--masses", type=int, default=6)
     ap.add_argument("--horizon", type=int, default=20)
     ap.add_argument("--steps", type=int, default=25)
-    ap.add_argument("--platform", default="cpu")
+    ap.add_argument("--platform", choices=PLATFORMS, default=None,
+                    help="JAX backend (default: JAX's default backend)")
     args = ap.parse_args(argv)
 
-    import jax
+    use_platform(args.platform)
 
-    if args.platform != "default":
-        jax.config.update("jax_platforms", args.platform)
-
-    from qpalm_tpu.workloads import SequentialMPC, mpc_chain
+    from qpalm_jax.workloads import SequentialMPC, mpc_chain
 
     H, A, _, _, _, meta = mpc_chain(args.masses, args.horizon)
     print(f"MPC ladder: {H.shape[0]} vars, {A.shape[0]} constraints, "

@@ -60,14 +60,14 @@ def worker(pid: int, nproc: int, port: int) -> None:
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    import qpalm_tpu  # noqa: F401  (enables x64)
-    from qpalm_tpu import Settings, constants as C
-    from qpalm_tpu.batch import stack_problems
-    from qpalm_tpu.parallel.mpc_loop import (
+    import qpalm_jax  # noqa: F401  (enables x64)
+    from qpalm_jax import Settings, constants as C
+    from qpalm_jax.batch import stack_problems
+    from qpalm_jax.parallel.mpc_loop import (
         mpc_chain_stage_data, solve_mpc_stage_sharded,
     )
-    from qpalm_tpu.parallel.sharded import default_mesh, solve_batch_sharded
-    from qpalm_tpu.workloads import random_qp
+    from qpalm_jax.parallel.sharded import default_mesh, solve_batch_sharded
+    from qpalm_jax.workloads import random_qp
 
     assert len(jax.devices()) == nproc, jax.devices()
 

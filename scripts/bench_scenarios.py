@@ -1,11 +1,9 @@
 #!/usr/bin/env python
 """The 10k-scenario config from BASELINE.md's north-star list: 10,240
-vmapped scenario QPs (n=16, m=24, f32, eps 1e-4) on one chip through the
-fused kernel.  Since the MAX_LANES_PER_CALL discovery (programs with >8
-grid-less pallas_calls mis-route their aliased buffers on this runtime)
-this batch runs as 10 host-split 1024-lane groups — this script is the
-post-split re-capture: it asserts EVERY lane solves and reports the
-median of 3 distinct perturbed repetitions.
+vmapped scenario QPs (n=16, m=24, f32, eps 1e-4) on one device through
+the vmapped XLA solve loop; asserts the 99.9% solved bar and reports the
+median of 3 distinct perturbed repetitions, plus a tier certified at 1e-6
+by the device polish.
 
 Usage: timeout 1800 python scripts/bench_scenarios.py
 """
@@ -38,12 +36,13 @@ def make(k):
 
 
 def main():
-    from qpalm_tpu.batch import stack_problems
-    from qpalm_tpu.polish import polish_batch_np
-    from qpalm_tpu.polish_device import polish_batch_tpu
-    from qpalm_tpu.solver.fused import fused_solve_jit
-    from qpalm_tpu.types import Settings
+    from qpalm_jax.batch import solve_batch_jit, stack_problems
+    from qpalm_jax.compile_cache import enable_compile_cache
+    from qpalm_jax.polish import polish_batch_np
+    from qpalm_jax.polish_device import polish_batch_device
+    from qpalm_jax.types import Settings
 
+    enable_compile_cache()
     dev = jax.devices()[0]
     s = Settings(dtype="float32", eps_abs=1e-4, eps_rel=1e-4, max_iter=320,
                  scaling=2, max_refine=0, delta=10.0)
@@ -51,31 +50,32 @@ def main():
     datas = [stack_problems(p, np.float32) for p in problems]
     zx = jnp.zeros(datas[0].q.shape, jnp.float32)
     zy = jnp.zeros(datas[0].bmin.shape, jnp.float32)
+    gamma = jnp.full((B,), s.gamma_init, jnp.float32)
 
-    r = fused_solve_jit(datas[0], zx, zy, s)  # compile + warm
-    st = np.asarray(r[2])
+    def solve(k):
+        return solve_batch_jit(datas[k], zx, zy, gamma, s, False, False)
+
+    r = solve(0)  # compile + warm
+    st = np.asarray(r.status)
     times = []
     for k in (1, 2, 3):
         t0 = time.perf_counter()
-        r = fused_solve_jit(datas[k], zx, zy, s)
-        st = np.asarray(r[2])  # forces the fetch inside the timed region
+        r = solve(k)
+        st = np.asarray(r.status)  # forces the fetch inside the timed region
         times.append(time.perf_counter() - t0)
     solved = int((st == 1).sum())
     dt = statistics.median(times)
 
-    # ---- certified tier (round 5): the same batch CERTIFIED at 1e-6 ----
-    # f32 pass + on-device polish (qpalm_tpu.polish_device, margin-gated
+    # ---- certified tier: the same batch CERTIFIED at 1e-6 ----
+    # f32 pass + on-device polish (qpalm_jax.polish_device, margin-gated
     # f32-'highest' check) in the timed region; an untimed native-f64
     # host referee re-checks every certified lane of the last rep.
-    cpu = jax.devices("cpu")[0]
-    with jax.default_device(cpu):
-        datas64h = [jax.tree.map(np.asarray, stack_problems(p, np.float64))
-                    for p in problems]
+    datas64h = [stack_problems(p, np.float64, host=True) for p in problems]
     datas64d = [jax.tree.map(jnp.asarray, d) for d in datas64h]
 
     def run_cert(k):
-        r = fused_solve_jit(datas[k], zx, zy, s)
-        pd = polish_batch_tpu(datas64d[k], r[0], r[1],
+        r = solve(k)
+        pd = polish_batch_device(datas64d[k], r.x, r.y,
                               eps_abs=1e-6, eps_rel=1e-6, refine_iters=3,
                               second_round_k=256, seed_guard="norm",
                               residual32=True, accept_viol=0.5)
@@ -104,8 +104,9 @@ def main():
             "B": B, "n": N, "m": M, "eps": 1e-4,
             "solved_last_rep": solved,
             "rep_s": [round(t, 4) for t in times],
-            "groups": B // 1024,
-            "device": getattr(dev, "device_kind", str(dev)),
+            "device": {"platform": dev.platform,
+                       "kind": dev.device_kind,
+                       "count": len(jax.devices())},
             "certified_1e-6": {
                 "solves_per_s": round(n_cert / cdt, 1),
                 "certified_last_rep": n_cert, "of": B,

@@ -27,8 +27,8 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import scipy.sparse as sp
 
-    from qpalm_tpu import constants as C, solve_sparse_auto
-    from qpalm_tpu.linalg.sparse_direct import SparseLDL
+    from qpalm_jax import constants as C, solve_sparse_auto
+    from qpalm_jax.linalg.sparse_direct import SparseLDL
 
     rng = np.random.default_rng(0)
 

@@ -14,8 +14,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from qpalm_tpu.io.qps import save_qps
-from qpalm_tpu.workloads import lasso, mpc_chain, portfolio, random_qp
+from qpalm_jax.io.qps import save_qps
+from qpalm_jax.workloads import lasso, mpc_chain, portfolio, random_qp
 
 OUT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

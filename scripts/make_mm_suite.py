@@ -50,7 +50,7 @@ import scipy.sparse as sp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from qpalm_tpu.io.qps import save_qps
+from qpalm_jax.io.qps import save_qps
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "benchmarks", "qps_mm")

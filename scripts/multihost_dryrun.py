@@ -2,7 +2,7 @@
 """Two-process multi-host dryrun: DP batch sharding and the SPIKE
 stage-sharded solve across a process (DCN-like) boundary.
 
-SURVEY §5 requires the distributed-communication design to cover ICI *and*
+SURVEY §5 requires the distributed-communication design to cover the device interconnect *and*
 DCN; single-process virtual meshes only exercise the former.  This script
 runs the same collectives across two OS processes (2 "hosts" x 4 devices,
 gloo CPU collectives, `jax.distributed.initialize`), and asserts the
@@ -40,11 +40,11 @@ def worker(pid: int, nproc: int, port: int) -> None:
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    import qpalm_tpu  # noqa: F401  (enables x64)
-    from qpalm_tpu import Settings
-    from qpalm_tpu.batch import solve_batch_jit, stack_problems
-    from qpalm_tpu.parallel import default_mesh, solve_batch_sharded
-    from qpalm_tpu.parallel.block_tridiag import spike_solve, thomas_solve
+    import qpalm_jax  # noqa: F401  (enables x64)
+    from qpalm_jax import Settings
+    from qpalm_jax.batch import solve_batch_jit, stack_problems
+    from qpalm_jax.parallel import default_mesh, solve_batch_sharded
+    from qpalm_jax.parallel.block_tridiag import spike_solve, thomas_solve
 
     assert len(jax.devices()) == 8, len(jax.devices())
     assert jax.process_count() == nproc

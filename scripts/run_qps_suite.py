@@ -1,22 +1,22 @@
 #!/usr/bin/env python
 """QPS-suite benchmark harness (the Maros-Meszaros driver).
 
-TPU-native equivalent of the reference's MATLAB sweep
+Equivalent of the reference's MATLAB sweep
 (reference: simulations/maros_meszaros/test_maros_meszaros.m:43-106): parse
 every .qps/.QPS file in a directory, solve at the reference protocol
 (eps_abs = eps_rel = 1e-6 by default), and report per-problem status /
 iterations / runtime / objective plus a summary line.
 
 Usage:
-  python scripts/run_qps_suite.py DIR [--eps 1e-6] [--platform cpu|tpu]
+  python scripts/run_qps_suite.py DIR [--eps 1e-6] [--platform cpu|gpu]
       [--max-n 2000] [--f32] [--route dense|sparse|auto] [--json out.json]
 
 Problems are bucketed by padded shape so each bucket compiles once; within a
 bucket they are solved as one vmapped batch.  `--f32` uses the float32 pass
-with f64 escalation of stragglers (see qpalm_tpu.batch.solve_batch_escalate).
+with f64 escalation of stragglers (see qpalm_jax.batch.solve_batch_escalate).
 
 `--route auto` sends problems with n > --sparse-above to the host
-sparse-direct path (qpalm_tpu.solve_sparse_auto) one at a time with exact
+sparse-direct path (qpalm_jax.solve_sparse_auto) one at a time with exact
 per-problem wall times — the route for the n ~ 1e3-1e4 Maros-Meszaros bulk
 (benchmarks/qps_mm).  Every solved instance is additionally KKT-certified
 in f64 on the unscaled problem (primal/dual residuals + complementarity),
@@ -30,13 +30,12 @@ import os
 import sys
 import time
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR", os.path.expanduser("~/.cache/jax_compilation")
-)
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from qpalm_jax.io.cli import PLATFORMS, use_platform  # noqa: E402
 
 
 def kkt_certify(Q, A, q, bmin, bmax, x, y, eps):
@@ -71,7 +70,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("dir")
     ap.add_argument("--eps", type=float, default=1e-6)
-    ap.add_argument("--platform", default="cpu")
+    ap.add_argument("--platform", choices=PLATFORMS, default=None,
+                    help="JAX backend (default: JAX's default backend)")
     ap.add_argument("--max-n", type=int, default=2000,
                     help="skip problems with more variables (dense memory)")
     ap.add_argument("--f32", action="store_true")
@@ -92,14 +92,11 @@ def main(argv=None):
                     help="per-problem wall-clock cap for the baseline (s)")
     args = ap.parse_args(argv)
 
-    import jax
+    use_platform(args.platform)
 
-    if args.platform != "default":
-        jax.config.update("jax_platforms", args.platform)
-
-    from qpalm_tpu import Settings
-    from qpalm_tpu.batch import bucket_indices, solve_batch, solve_batch_escalate
-    from qpalm_tpu.io import load_qps
+    from qpalm_jax import Settings
+    from qpalm_jax.batch import bucket_indices, solve_batch, solve_batch_escalate
+    from qpalm_jax.io import load_qps
 
     files = sorted(
         glob.glob(os.path.join(args.dir, "*.qps"))
@@ -174,7 +171,7 @@ def main(argv=None):
 
     # host sparse-direct route (the MM n >= 1e3 bulk)
     if sparse_probs:
-        from qpalm_tpu import solve_sparse_auto
+        from qpalm_jax import solve_sparse_auto
 
         sset = Settings(eps_abs=args.eps, eps_rel=args.eps, max_iter=50000,
                         scaling=10, verbose=False)
@@ -192,7 +189,7 @@ def main(argv=None):
                 "time_s": dt, "kkt": bool(ok), "route": "sparse",
             }
             if args.baseline:
-                from qpalm_tpu import baseline_c
+                from qpalm_jax import baseline_c
                 t0 = time.perf_counter()
                 try:
                     rb = baseline_c.solve_sparse(

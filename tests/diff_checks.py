@@ -21,8 +21,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qpalm_tpu import Settings
-from qpalm_tpu.diff import solve_diff
+from qpalm_jax import Settings
+from qpalm_jax.diff import solve_diff
 
 S = Settings(eps_abs=1e-10, eps_rel=1e-10, verbose=False, scaling=0)
 

@@ -8,7 +8,7 @@ and satisfy the KKT conditions independently.
 import numpy as np
 import pytest
 
-from qpalm_tpu import QPALM, Settings, baseline_c
+from qpalm_jax import QPALM, Settings, baseline_c
 
 from helpers import kkt_check, random_convex_qp
 
@@ -39,8 +39,8 @@ def test_differential_sweep_vs_baseline():
     one-sided).  Two genuinely independent implementations agreeing at
     1e-5 on x and 1e-6 on the objective is the strongest cheap semantic
     check available."""
-    from qpalm_tpu.batch import solve_batch
-    from qpalm_tpu import constants as C
+    from qpalm_jax.batch import solve_batch
+    from qpalm_jax import constants as C
 
     def variants(n, m, seed):
         rng = np.random.default_rng(seed)

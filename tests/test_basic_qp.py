@@ -9,9 +9,9 @@ swept over proximal x scaling x factorization configurations
 import numpy as np
 import pytest
 
-import qpalm_tpu
-from qpalm_tpu import QPALM, Settings
-from qpalm_tpu.constants import (
+import qpalm_jax
+from qpalm_jax import QPALM, Settings
+from qpalm_jax.constants import (
     FACTORIZE_KKT,
     FACTORIZE_KKT_OR_SCHUR,
     FACTORIZE_SCHUR,
@@ -40,7 +40,7 @@ def base_settings(**kw):
 
 
 def assert_solution(res):
-    assert int(res.info.status_val) == qpalm_tpu.QPALM_SOLVED
+    assert int(res.info.status_val) == qpalm_jax.QPALM_SOLVED
     for i in range(N):
         tol = abs(1e-5 * SOLUTION[i])
         assert abs(res.solution.x[i] - SOLUTION[i]) <= tol, (
@@ -94,7 +94,7 @@ def test_basic_qp_maxiter():
     s = base_settings(max_iter=3)
     solver = QPALM(Q, A, q, bmin, bmax, settings=s)
     res = solver.solve()
-    assert int(res.info.status_val) == qpalm_tpu.QPALM_MAX_ITER_REACHED
+    assert int(res.info.status_val) == qpalm_jax.QPALM_MAX_ITER_REACHED
     assert int(res.info.iter) == 3
 
 
@@ -135,7 +135,7 @@ def test_dual_termination_psd_singular_q():
     # with a -1e20 limit ANY finite dual objective would terminate
     # immediately as QPALM_DUAL_TERMINATED; a singular Q must instead ride
     # the guard and solve to optimality
-    assert int(res.info.status_val) == qpalm_tpu.QPALM_SOLVED
+    assert int(res.info.status_val) == qpalm_jax.QPALM_SOLVED
     kkt_check(Qs, A, q, bmin, bmax,
               np.asarray(res.solution.x), np.asarray(res.solution.y),
               tol=1e-5)
@@ -146,5 +146,5 @@ def test_basic_qp_float32():
     s = base_settings(eps_abs=1e-3, eps_rel=1e-3, dtype="float32")
     solver = QPALM(Q, A, q, bmin, bmax, settings=s)
     res = solver.solve()
-    assert int(res.info.status_val) == qpalm_tpu.QPALM_SOLVED
+    assert int(res.info.status_val) == qpalm_jax.QPALM_SOLVED
     np.testing.assert_allclose(res.solution.x, SOLUTION, rtol=2e-2)

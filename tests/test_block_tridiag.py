@@ -5,14 +5,14 @@ block-partitioned KKT systems')."""
 import jax.numpy as jnp
 import numpy as np
 
-from qpalm_tpu.parallel import default_mesh
-from qpalm_tpu.parallel.block_tridiag import (
+from qpalm_jax.parallel import default_mesh
+from qpalm_jax.parallel.block_tridiag import (
     block_tridiag_error,
     extract_block_tridiag,
     spike_solve,
     thomas_solve,
 )
-from qpalm_tpu.workloads import mpc_chain, mpc_stage_permutation
+from qpalm_jax.workloads import mpc_chain, mpc_stage_permutation
 
 
 def _random_spd_tridiag(S, nb, seed=0):
@@ -58,8 +58,8 @@ def test_factorize_stage_matches_dense_solver():
     bit-equivalent to the dense Schur path on a stage-ordered MPC QP."""
     import numpy as np
 
-    from qpalm_tpu import QPALM, Settings
-    from qpalm_tpu.constants import FACTORIZE_STAGE
+    from qpalm_jax import QPALM, Settings
+    from qpalm_jax.constants import FACTORIZE_STAGE
 
     H, A, q, bmin, bmax, meta = mpc_chain(4, 10, seed=0)
     nx, nu, N = meta["nx"], meta["nu"], meta["N"]
@@ -79,7 +79,7 @@ def test_factorize_stage_matches_dense_solver():
 
 
 def test_sequential_mpc_stage_structured():
-    from qpalm_tpu.workloads import SequentialMPC
+    from qpalm_jax.workloads import SequentialMPC
     import numpy as np
 
     m1 = SequentialMPC(3, 6, seed=1)
@@ -130,8 +130,8 @@ def test_spike_cyclic_reduction_nd64():
 import jax; jax.config.update('jax_platforms', 'cpu')
 import numpy as np
 import jax.numpy as jnp
-from qpalm_tpu.parallel import default_mesh
-from qpalm_tpu.parallel.block_tridiag import spike_solve, thomas_solve
+from qpalm_jax.parallel import default_mesh
+from qpalm_jax.parallel.block_tridiag import spike_solve, thomas_solve
 
 S, nb = 128, 2
 rng = np.random.default_rng(0)

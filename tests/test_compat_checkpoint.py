@@ -3,10 +3,10 @@
 import numpy as np
 import scipy.sparse as sp
 
-import qpalm_tpu
-from qpalm_tpu import Settings, solve
-from qpalm_tpu.checkpoint import load_batch, load_solution, save_batch, save_solution
-from qpalm_tpu.compat import Qpalm
+import qpalm_jax
+from qpalm_jax import Settings, solve
+from qpalm_jax.checkpoint import load_batch, load_solution, save_batch, save_solution
+from qpalm_jax.compat import Qpalm
 
 from helpers import random_convex_qp
 
@@ -56,14 +56,14 @@ def test_checkpoint_roundtrip(tmp_path):
     save_solution(p, res)
     x, y, meta = load_solution(p)
     np.testing.assert_array_equal(x, res.solution.x)
-    assert meta["status"] == qpalm_tpu.QPALM_SOLVED
+    assert meta["status"] == qpalm_jax.QPALM_SOLVED
     # resume: warm start from the checkpoint solves immediately-ish
     r2 = solve(*prob, settings=s, x0=x, y0=y)
     assert int(r2.info.iter) < 12
 
 
 def test_batch_checkpoint_roundtrip(tmp_path):
-    from qpalm_tpu.batch import solve_batch
+    from qpalm_jax.batch import solve_batch
 
     probs = [random_convex_qp(5, 7, seed=i) for i in range(3)]
     res = solve_batch(probs, Settings(eps_abs=1e-6, eps_rel=1e-6, verbose=False))

@@ -1,4 +1,4 @@
-"""Host f64 finisher (qpalm_tpu.finish_np): the tail-rescue loop for lanes
+"""Host f64 finisher (qpalm_jax.finish_np): the tail-rescue loop for lanes
 whose f32 solution defeats the active-set polish.
 
 Claims tested against independent oracles: the f64 reference solver's
@@ -10,10 +10,10 @@ import numpy as np
 import jax
 import pytest
 
-from qpalm_tpu import QPALM, Settings, constants as C
-from qpalm_tpu.batch import stack_problems
-from qpalm_tpu.finish_np import palm_finish_np
-from qpalm_tpu.polish import polish_batch_np
+from qpalm_jax import QPALM, Settings, constants as C
+from qpalm_jax.batch import stack_problems
+from qpalm_jax.finish_np import palm_finish_np
+from qpalm_jax.polish import polish_batch_np
 
 from helpers import random_convex_qp
 from test_polish import _solve_f32_batch
@@ -98,10 +98,10 @@ def test_finisher_sanitizes_nonfinite_warm_start():
     import jax
     import numpy as np
 
-    from qpalm_tpu.batch import stack_problems
-    from qpalm_tpu.finish_np import palm_finish_np
-    from qpalm_tpu.polish import polish_batch_np
-    from qpalm_tpu.workloads import lasso
+    from qpalm_jax.batch import stack_problems
+    from qpalm_jax.finish_np import palm_finish_np
+    from qpalm_jax.polish import polish_batch_np
+    from qpalm_jax.workloads import lasso
 
     probs = [lasso(20, seed=60 + i) for i in (21, 165, 0)]
     d64 = jax.tree.map(np.asarray, stack_problems(probs, np.float64))

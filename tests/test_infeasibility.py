@@ -5,8 +5,8 @@ the 4 proximal x scaling combinations)."""
 import numpy as np
 import pytest
 
-import qpalm_tpu
-from qpalm_tpu import Settings, solve
+import qpalm_jax
+from qpalm_jax import Settings, solve
 
 COMBOS = [
     dict(proximal=True, scaling=2),

@@ -6,10 +6,10 @@ import textwrap
 import numpy as np
 import pytest
 
-import qpalm_tpu
-from qpalm_tpu import Settings
-from qpalm_tpu.io import load_mtx, load_qps, read_settings_file
-from qpalm_tpu.io.cli import main as cli_main
+import qpalm_jax
+from qpalm_jax import Settings
+from qpalm_jax.io import load_mtx, load_qps, read_settings_file
+from qpalm_jax.io.cli import main as cli_main
 
 
 QPS_TEXT = textwrap.dedent("""\
@@ -64,7 +64,7 @@ def test_qps_parse(qps_file):
 
 def test_qps_solve_kkt(qps_file):
     p = load_qps(qps_file)
-    res = qpalm_tpu.solve(
+    res = qpalm_jax.solve(
         p.Q, p.A, p.q, p.bmin, p.bmax, c=p.c,
         settings=Settings(eps_abs=1e-6, eps_rel=1e-6),
     )
@@ -142,7 +142,7 @@ def test_mtx_general_banner_and_comments(tmp_path):
     """Review regressions: a `general` banner file storing both triangles
     must NOT be mirrored (scipy sums duplicates, doubling off-diagonals),
     and standard '%' comment lines must be skipped."""
-    from qpalm_tpu.io.mtx import _load_mtx_matrix, _load_mtx_vector
+    from qpalm_jax.io.mtx import _load_mtx_matrix, _load_mtx_vector
 
     p = tmp_path / "q.mtx"
     p.write_text(
@@ -209,7 +209,7 @@ def test_mtx_roundtrip(tmp_path):
     )
     assert (prob.n, prob.m) == (2, 3)
     assert prob.bmin[0] == -1e20  # clipped to QPALM infinity
-    res = qpalm_tpu.solve(
+    res = qpalm_jax.solve(
         prob.Q, prob.A, prob.q, prob.bmin, prob.bmax,
         settings=Settings(eps_abs=1e-6, eps_rel=1e-6),
     )
@@ -255,8 +255,8 @@ def test_old_fixed_column_format(tmp_path):
 
 
 def test_native_parser_matches_python(qps_file):
-    from qpalm_tpu.io.native import load_library
-    from qpalm_tpu.io.qps import load_qps_python
+    from qpalm_jax.io.native import load_library
+    from qpalm_jax.io.qps import load_qps_python
 
     if load_library() is None:
         pytest.skip("native QPS reader unavailable")
@@ -271,7 +271,7 @@ def test_native_parser_matches_python(qps_file):
 
 
 def test_native_parser_error(tmp_path):
-    from qpalm_tpu.io.native import load_library
+    from qpalm_jax.io.native import load_library
 
     if load_library() is None:
         pytest.skip("native QPS reader unavailable")
@@ -296,7 +296,7 @@ def test_mini_suite_harness():
     import tempfile, json
     out = os.path.join(tempfile.mkdtemp(), "res.json")
     rc = suite_main([suite, "--eps", "1e-6", "--max-n", "60",
-                     "--json", out, "--platform", "default"])
+                     "--json", out])
     assert rc == 0
     with open(out) as f:
         res = json.load(f)
@@ -304,7 +304,7 @@ def test_mini_suite_harness():
 
 
 def test_cli(qps_file, capsys):
-    rc = cli_main(["--platform", "default", qps_file])
+    rc = cli_main([qps_file])
     assert rc == 0
     out = capsys.readouterr().out
     assert "Status: solved" in out
@@ -331,13 +331,13 @@ def test_hard_suite_parses_and_stress_problems_solve():
 
     s = Settings(eps_abs=1e-6, eps_rel=1e-6, verbose=False)
     p = probs["ILLCOND0"]  # cond(Q) = 1e8
-    r = qpalm_tpu.solve(p.Q, p.A, p.q, p.bmin, p.bmax, settings=s)
+    r = qpalm_jax.solve(p.Q, p.A, p.q, p.bmin, p.bmax, settings=s)
     assert r.info.status == "solved"
     p = probs["PINF0"]
-    r = qpalm_tpu.solve(p.Q, p.A, p.q, p.bmin, p.bmax, settings=s)
+    r = qpalm_jax.solve(p.Q, p.A, p.q, p.bmin, p.bmax, settings=s)
     assert r.info.status == "primal infeasible"
     p = probs["DINF0"]
-    r = qpalm_tpu.solve(p.Q, p.A, p.q, p.bmin, p.bmax, settings=s)
+    r = qpalm_jax.solve(p.Q, p.A, p.q, p.bmin, p.bmax, settings=s)
     assert r.info.status == "dual infeasible"
 
 
@@ -346,7 +346,7 @@ def test_save_qps_variable_bounds_roundtrip(tmp_path):
     parsers fold them back into appended identity rows of A (the reference
     convention, qpalm_qps.c:145-148).  Sparse inputs must not densify."""
     import scipy.sparse as sp
-    from qpalm_tpu.io.qps import load_qps_python, save_qps
+    from qpalm_jax.io.qps import load_qps_python, save_qps
 
     rng = np.random.default_rng(0)
     n, m = 6, 3

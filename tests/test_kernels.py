@@ -2,11 +2,13 @@
 numpy oracles (reference analogues: tests/src/test_lin_alg.c,
 test_solver_interface.c, test_nonconvex_qp.c, test_ls_qp.c)."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
-import jax.numpy as jnp
 
-from qpalm_tpu.linalg.dense import (
+from qpalm_jax.linalg.dense import (
+    cho_solve,
     gershgorin_max,
     newton_solve_kkt,
     newton_solve_schur,
@@ -14,10 +16,10 @@ from qpalm_tpu.linalg.dense import (
     schur_matrix,
     vec_mid,
 )
-from qpalm_tpu.scaling import scale_data
-from qpalm_tpu.solver.linesearch import exact_linesearch
-from qpalm_tpu.solver.nonconvex import lobpcg_min_eig
-from qpalm_tpu.types import QPData
+from qpalm_jax.scaling import scale_data
+from qpalm_jax.solver.linesearch import exact_linesearch
+from qpalm_jax.solver.nonconvex import lobpcg_min_eig
+from qpalm_jax.types import QPData
 
 
 def test_norm_inf_and_mid():
@@ -28,6 +30,37 @@ def test_norm_inf_and_mid():
     np.testing.assert_array_equal(
         np.asarray(vec_mid(v, lo, hi)), [1.0, -1.0, 2.0]
     )
+
+
+def _spd_batch(B, n, seed, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((B, n, n)).astype(dtype)
+    return M @ np.transpose(M, (0, 2, 1)) + n * np.eye(n, dtype=dtype)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("n", [8, 16, 64])
+def test_cholesky_and_solve_match_numpy(n, batched):
+    """The solver's factor/solve pair (jnp.linalg.cholesky + cho_solve,
+    the lower factor L with L L' = M) against numpy, jitted, on one system
+    and under vmap over a batch of systems."""
+    B = 6 if batched else 1
+    M = _spd_batch(B, n, seed=n)
+    b = np.random.default_rng(n + 1).standard_normal((B, n))
+
+    def factor_solve(M, b):
+        L = jnp.linalg.cholesky(M)
+        return L, cho_solve(L, b)
+
+    fn = jax.jit(jax.vmap(factor_solve) if batched else factor_solve)
+    L, x = fn(jnp.asarray(M if batched else M[0]),
+              jnp.asarray(b if batched else b[0]))
+    L = np.asarray(L).reshape(B, n, n)
+    x = np.asarray(x).reshape(B, n)
+    np.testing.assert_allclose(L, np.linalg.cholesky(M), rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(x, np.linalg.solve(M, b[..., None])[..., 0],
+                               rtol=1e-9, atol=1e-12)
 
 
 def test_gershgorin_upper_bounds_eigs():

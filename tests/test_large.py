@@ -1,16 +1,16 @@
-"""Large dense-QP device pipeline (qpalm_tpu/large.py) — CPU-sized checks.
+"""Large dense-QP device pipeline (qpalm_jax/large.py) — CPU-sized checks.
 
 The pipeline contract: every returned solution is f64-KKT-certified at
-eps on the unscaled problem or flagged ok=False.  On TPU the f32 pass
-rides the MXU (hardware numbers: benchmarks/RESULTS_large_single.md);
-here the same code path runs on CPU at small n.
+eps on the unscaled problem or flagged ok=False.  On a GPU the f32 pass
+runs on the card (chip_smoke.py's `large` phase at n=1024); here the same
+code path runs on CPU at small n.
 """
 
 import numpy as np
 import pytest
 
-from qpalm_tpu.large import solve_large_dense
-from qpalm_tpu.workloads import random_qp
+from qpalm_jax.large import solve_large_dense
+from qpalm_jax.workloads import random_qp
 
 from helpers import kkt_check
 
@@ -27,14 +27,14 @@ def test_pipeline_certifies_batch():
 
 
 def test_pipeline_objective_matches_f64_solve():
-    import qpalm_tpu
-    from qpalm_tpu import Settings
+    import qpalm_jax
+    from qpalm_jax import Settings
 
     n, m = 64, 96
     p = random_qp(n, m, density=0.3, seed=11)
     r = solve_large_dense([p], eps=1e-6)
     assert r.ok[0]
-    ref = qpalm_tpu.solve(*p, settings=Settings(eps_abs=1e-9, eps_rel=1e-9,
+    ref = qpalm_jax.solve(*p, settings=Settings(eps_abs=1e-9, eps_rel=1e-9,
                                                 verbose=False))
     assert abs(r.objective[0] - float(ref.info.objective)) <= 1e-5 * max(
         1.0, abs(float(ref.info.objective)))

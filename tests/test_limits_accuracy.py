@@ -2,9 +2,9 @@
 
 import numpy as np
 
-import qpalm_tpu
-from qpalm_tpu import QPALM, Settings
-from qpalm_tpu.batch import solve_batch
+import qpalm_jax
+from qpalm_jax import QPALM, Settings
+from qpalm_jax.batch import solve_batch
 
 from helpers import random_convex_qp
 
@@ -43,7 +43,7 @@ def test_f32_results_honest_in_f64():
                  max_iter=200, verbose=False),
     )
     status = np.asarray(res.status)
-    assert np.all(status == qpalm_tpu.QPALM_SOLVED)
+    assert np.all(status == qpalm_jax.QPALM_SOLVED)
     for i, (Q, A, q, bmin, bmax) in enumerate(probs):
         x = np.asarray(res.x)[i][:24].astype(np.float64)
         y = np.asarray(res.y)[i][:36].astype(np.float64)

@@ -21,8 +21,8 @@ import os
 import numpy as np
 import pytest
 
-from qpalm_tpu import QPALM, Settings
-from qpalm_tpu.io.qps import load_qps_python
+from qpalm_jax import QPALM, Settings
+from qpalm_jax.io.qps import load_qps_python
 
 from helpers import kkt_check
 
@@ -63,11 +63,11 @@ def test_maros_instance(name):
 def test_maros_parsers_agree():
     """Differential test: the native C++ QPS reader and the python parser
     must produce identical problems on every real MM file."""
-    from qpalm_tpu.io import qps as qps_mod
+    from qpalm_jax.io import qps as qps_mod
 
     if not getattr(qps_mod, "native_available", lambda: True)():
         pytest.skip("native reader unavailable")
-    from qpalm_tpu.io.qps import load_qps
+    from qpalm_jax.io.qps import load_qps
 
     for path in sorted(glob.glob(os.path.join(MAROS_DIR, "*.qps"))):
         pp = load_qps_python(path)
@@ -110,7 +110,7 @@ def test_cvxqp_published_optimum(name):
         pytest.skip("MM suite not generated (scripts/make_mm_suite.py)")
     fstar = CVXQP_PUBLISHED[name]
     p = load_qps_python(path)
-    from qpalm_tpu import solve_sparse_auto
+    from qpalm_jax import solve_sparse_auto
 
     s = Settings(eps_abs=1e-7, eps_rel=1e-7, verbose=False, max_iter=5000)
     r = solve_sparse_auto(p.Q, p.A, p.q, p.bmin, p.bmax, settings=s, c=p.c)

@@ -14,9 +14,9 @@ import os
 import numpy as np
 import pytest
 
-from qpalm_tpu import Settings
-from qpalm_tpu.host_sparse import solve_sparse_auto
-from qpalm_tpu.io import load_qps
+from qpalm_jax import Settings
+from qpalm_jax.host_sparse import solve_sparse_auto
+from qpalm_jax.io import load_qps
 
 _MM_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks", "qps_mm")

@@ -6,8 +6,8 @@ stronger than value comparison)."""
 import numpy as np
 import pytest
 
-import qpalm_tpu
-from qpalm_tpu import QPALM, Settings
+import qpalm_jax
+from qpalm_jax import QPALM, Settings
 
 from helpers import kkt_check, random_convex_qp
 
@@ -19,7 +19,7 @@ def test_medium_qp(seed, proximal):
     s = Settings(eps_abs=1e-6, eps_rel=1e-6, proximal=proximal, verbose=False)
     solver = QPALM(Q, A, q, bmin, bmax, settings=s)
     res = solver.solve()
-    assert int(res.info.status_val) == qpalm_tpu.QPALM_SOLVED
+    assert int(res.info.status_val) == qpalm_jax.QPALM_SOLVED
     kkt_check(Q, A, q, bmin, bmax, res.solution.x, res.solution.y, tol=1e-4)
 
 
@@ -27,7 +27,7 @@ def test_larger_qp():
     Q, A, q, bmin, bmax = random_convex_qp(60, 90, seed=7)
     s = Settings(eps_abs=1e-6, eps_rel=1e-6, verbose=False)
     res = QPALM(Q, A, q, bmin, bmax, settings=s).solve()
-    assert int(res.info.status_val) == qpalm_tpu.QPALM_SOLVED
+    assert int(res.info.status_val) == qpalm_jax.QPALM_SOLVED
     kkt_check(Q, A, q, bmin, bmax, res.solution.x, res.solution.y, tol=1e-4)
 
 
@@ -42,7 +42,7 @@ def test_degenerate_hessian():
     u = rng.random(m) + 0.5
     s = Settings(eps_abs=1e-6, eps_rel=1e-6, verbose=False)
     res = QPALM(Q, A, q, -u, u, settings=s).solve()
-    assert int(res.info.status_val) == qpalm_tpu.QPALM_SOLVED
+    assert int(res.info.status_val) == qpalm_jax.QPALM_SOLVED
     kkt_check(Q, A, q, -u, u, res.solution.x, res.solution.y, tol=1e-4)
 
 
@@ -57,7 +57,7 @@ def test_equality_constraints():
     b = rng.standard_normal(m) * 0.1
     s = Settings(eps_abs=1e-7, eps_rel=1e-7, verbose=False)
     res = QPALM(Q, A, q, b, b, settings=s).solve()
-    assert int(res.info.status_val) == qpalm_tpu.QPALM_SOLVED
+    assert int(res.info.status_val) == qpalm_jax.QPALM_SOLVED
     np.testing.assert_allclose(A @ res.solution.x, b, atol=1e-5)
     # stationarity
     g = Q @ res.solution.x + q + A.T @ res.solution.y

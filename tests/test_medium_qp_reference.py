@@ -7,8 +7,8 @@ within the reference's own per-component relative tolerance of 1e-5
 import numpy as np
 import scipy.sparse as sp
 
-import qpalm_tpu
-from qpalm_tpu import QPALM, Settings
+import qpalm_jax
+from qpalm_jax import QPALM, Settings
 
 N = M = 15
 
@@ -71,7 +71,7 @@ def test_reference_medium_qp_stored_solution():
 
 def test_reference_medium_qp_all_factorizations():
     """Same stored solution under every factorization backend."""
-    from qpalm_tpu.constants import (
+    from qpalm_jax.constants import (
         FACTORIZE_CG,
         FACTORIZE_KKT,
         FACTORIZE_SCHUR,

@@ -7,15 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import qpalm_tpu
-from qpalm_tpu import QPALM, Settings, constants as C
-from qpalm_tpu.parallel import default_mesh
-from qpalm_tpu.parallel.mpc_loop import (
+import qpalm_jax
+from qpalm_jax import QPALM, Settings, constants as C
+from qpalm_jax.parallel import default_mesh
+from qpalm_jax.parallel.mpc_loop import (
     MPCStageData,
     from_mpc_chain,
     solve_mpc_stage_sharded,
 )
-from qpalm_tpu.workloads import mpc_chain, mpc_stage_permutation
+from qpalm_jax.workloads import mpc_chain, mpc_stage_permutation
 
 
 def _settings(proximal, scaling):
@@ -179,7 +179,7 @@ def test_stage_data_direct_constructor_matches_dense_route():
     from_mpc_chain(mpc_chain(...)) route (it exists because the dense
     route's vstack holds ~27 GB of resident pages per process at
     horizon 1536 — the multiproc scaling bench OOMed at 4 processes)."""
-    from qpalm_tpu.parallel.mpc_loop import mpc_chain_stage_data
+    from qpalm_jax.parallel.mpc_loop import mpc_chain_stage_data
 
     for masses, horizon, seed in ((4, 16, 0), (10, 12, 3), (3, 7, 11)):
         dense = from_mpc_chain(*mpc_chain(masses, horizon, seed=seed))

@@ -5,9 +5,9 @@ retrieve the actual eigenvalue")."""
 import numpy as np
 import pytest
 
-import qpalm_tpu
-from qpalm_tpu import QPALM, Settings, solve
-from qpalm_tpu.solver.nonconvex import lobpcg_min_eig
+import qpalm_jax
+from qpalm_jax import QPALM, Settings, solve
+from qpalm_jax.solver.nonconvex import lobpcg_min_eig
 
 
 def _indefinite_box_qp(n=8, seed=0):
@@ -105,9 +105,9 @@ def test_lobpcg_matches_eigh():
 
 import scipy.sparse as sp
 
-from qpalm_tpu import constants as C
-from qpalm_tpu.host_sparse import SparseQPALM, solve_sparse_direct
-from qpalm_tpu.solver.nonconvex import lobpcg_min_eig_np
+from qpalm_jax import constants as C
+from qpalm_jax.host_sparse import SparseQPALM, solve_sparse_direct
+from qpalm_jax.solver.nonconvex import lobpcg_min_eig_np
 
 
 def _indefinite_sparse_qp(n=60, seed=0):

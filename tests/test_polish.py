@@ -1,7 +1,7 @@
 """Active-set polish: f32 solutions upgraded to 1e-6 KKT accuracy in f64.
 
-The polish is the accuracy half of the headline bench protocol (f32 TPU pass
-+ f64 host polish), so its claims are tested against an independent
+The polish is the accuracy half of the headline bench protocol (f32 device pass
++ f64 polish), so its claims are tested against an independent
 high-accuracy f64 solve, not against itself.
 """
 
@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qpalm_tpu import QPALM, Settings, constants as C
-from qpalm_tpu.batch import solve_batch_jit, stack_problems
-from qpalm_tpu.polish import polish_batch, polish_batch_np
+from qpalm_jax import QPALM, Settings, constants as C
+from qpalm_jax.batch import solve_batch_jit, stack_problems
+from qpalm_jax.polish import polish_batch, polish_batch_np
 
 from helpers import random_convex_qp
 
@@ -146,13 +146,13 @@ def test_compressed_matches_full():
 
 
 def test_device_polish_matches_np():
-    """polish_batch_tpu (the on-device certification pipeline) must agree
+    """polish_batch_device (the on-device certification pipeline) must agree
     with the host polish: same certified-lane classification on the lanes
     both certify, and matching solutions there.  Runs the f64-residual
     mode AND the residual32 mode (f32 'highest' residuals + margin-gated
     acceptance) — on CPU both modes' f32 matmuls are true f32, which is
-    also what 'highest' delivers on TPU hardware."""
-    from qpalm_tpu.polish_device import polish_batch_tpu
+    also what 'highest' delivers on a GPU."""
+    from qpalm_jax.polish_device import polish_batch_device
 
     probs = [random_convex_qp(24, 36, seed=500 + i, density=0.5)
              for i in range(32)]
@@ -168,7 +168,7 @@ def test_device_polish_matches_np():
              residual32=True, accept_viol=0.5),
         dict(seed_guard=True, refine_iters=4),
     ):
-        pd = polish_batch_tpu(d64j, jnp.asarray(x32), jnp.asarray(y32),
+        pd = polish_batch_device(d64j, jnp.asarray(x32), jnp.asarray(y32),
                               **kw)
         ok_dev = np.asarray(pd.ok)
         # the device polish may certify a superset or subset on knife-edge
@@ -190,7 +190,7 @@ def test_device_polish_rank_deficient_active_set():
     """The primal form P = Q + A_act'A_act/dh stays SPD under redundant
     (rank-deficient) active rows, where the host KKT LU can go singular —
     the device polish must still solve and certify."""
-    from qpalm_tpu.polish_device import polish_batch_tpu
+    from qpalm_jax.polish_device import polish_batch_device
 
     rng = np.random.default_rng(3)
     n, m = 12, 18
@@ -205,7 +205,7 @@ def test_device_polish_rank_deficient_active_set():
     r32 = _solve_f32_batch(probs, eps=5e-5)
     d64 = jax.tree.map(np.asarray, stack_problems(probs, np.float64))
     d64j = jax.tree.map(jnp.asarray, d64)
-    pd = polish_batch_tpu(d64j, jnp.asarray(np.asarray(r32.x)),
+    pd = polish_batch_device(d64j, jnp.asarray(np.asarray(r32.x)),
                           jnp.asarray(np.asarray(r32.y)),
                           seed_guard="norm", refine_iters=6)
     assert np.isfinite(np.asarray(pd.x)).all()

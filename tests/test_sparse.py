@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-import qpalm_tpu
-from qpalm_tpu import QPALM, Settings
-from qpalm_tpu.constants import FACTORIZE_CG
-from qpalm_tpu.linalg.sparse import (
+import qpalm_jax
+from qpalm_jax import QPALM, Settings
+from qpalm_jax.constants import FACTORIZE_CG
+from qpalm_jax.linalg.sparse import (
     ata_diag,
     ata_gershgorin_upper,
     col_inf_norms,
@@ -117,8 +117,8 @@ def test_block_jacobi_preconditioner():
     ill-conditioning (Laplacian^2 Hessian), where diag(M) is useless."""
     import scipy.sparse as sp
     import jax.numpy as jnp
-    from qpalm_tpu.linalg.cg import pcg
-    from qpalm_tpu.linalg.sparse import (
+    from qpalm_jax.linalg.cg import pcg
+    from qpalm_jax.linalg.sparse import (
         ata_diag, block_diagonals, block_jacobi_apply, from_scipy, sym_diag,
     )
 
@@ -170,12 +170,12 @@ def test_solver_block_jacobi_mode():
          ).tocsc()
     q = rng.standard_normal(n)
     u = 1 + rng.random(m)
-    s = qpalm_tpu.Settings(
+    s = qpalm_jax.Settings(
         eps_abs=1e-6, eps_rel=1e-6, verbose=False,
-        factorization_method=qpalm_tpu.constants.FACTORIZE_CG,
+        factorization_method=qpalm_jax.constants.FACTORIZE_CG,
         cg_precond="block_jacobi", cg_block=50, cg_max_iter=2000,
     )
-    r = qpalm_tpu.QPALM(Q=Q, A=A, q=q, bmin=-u, bmax=u, settings=s).solve()
+    r = qpalm_jax.QPALM(Q=Q, A=A, q=q, bmin=-u, bmax=u, settings=s).solve()
     assert r.info.status == "solved"
     kkt_check(Q.toarray(), A.toarray(), q, -u, u,
               np.asarray(r.solution.x), np.asarray(r.solution.y), tol=1e-4)

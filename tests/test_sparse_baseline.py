@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from qpalm_tpu import baseline_c
+from qpalm_jax import baseline_c
 
 
 def _have_sparse():
@@ -87,8 +87,8 @@ def test_powell20_rescue_matches_host_solver():
     assert r_fw["iter"] < r_ref["iter"] / 2
     assert _kkt_ok(Q, A, q, rhs, bmax, r_fw["x"], r_fw["y"], eps=1e-5)
 
-    from qpalm_tpu.host_sparse import solve_sparse_auto
-    from qpalm_tpu.types import Settings
+    from qpalm_jax.host_sparse import solve_sparse_auto
+    from qpalm_jax.types import Settings
     s = Settings(eps_abs=1e-6, eps_rel=1e-6, scaling=10, max_iter=50000)
     r_py = solve_sparse_auto(Q, A, q, rhs, bmax, settings=s)
     assert r_py.status == 1

@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from qpalm_tpu import QPALM, Settings, constants as C
-from qpalm_tpu.host_sparse import solve_sparse_direct
-from qpalm_tpu.linalg import sparse_direct
+from qpalm_jax import QPALM, Settings, constants as C
+from qpalm_jax.host_sparse import solve_sparse_direct
+from qpalm_jax.linalg import sparse_direct
 
 from helpers import kkt_check, random_convex_qp
 
@@ -98,7 +98,7 @@ def test_sparse_qpalm_lifecycle_reuses_symbolic():
     analysis must be built once and reused, re-solves must warm start
     (fewer iterations), and every solution must match a fresh
     solve_sparse_direct on the updated data."""
-    from qpalm_tpu import SparseQPALM
+    from qpalm_jax import SparseQPALM
 
     rng = np.random.default_rng(6)
     n, m = 60, 90
@@ -132,7 +132,7 @@ def test_sparse_batch_matches_individual_solves():
     """solve_sparse_batch over host threads must reproduce individual
     solve_sparse_direct results exactly in input order, including mixed
     sparsity patterns, and honor time_limit per problem."""
-    from qpalm_tpu import solve_sparse_batch
+    from qpalm_jax import solve_sparse_batch
 
     rng = np.random.default_rng(3)
     probs = []
@@ -158,10 +158,10 @@ def test_sparse_batch_matches_individual_solves():
 
 
 def test_api_solve_routes_large_sparse_to_direct_path():
-    """qpalm_tpu.solve on a big scipy-sparse convex QP (default settings)
+    """qpalm_jax.solve on a big scipy-sparse convex QP (default settings)
     must ride solve_sparse_auto (direct LDL'/KKT or CG by factor cost) and
     return a normal SolveResult — the CLI's large-QPS path."""
-    import qpalm_tpu
+    import qpalm_jax
 
     rng = np.random.default_rng(2)
     n, m = 2100, 800
@@ -172,7 +172,7 @@ def test_api_solve_routes_large_sparse_to_direct_path():
                  shape=(m, n)).tocsc()
     q = rng.standard_normal(n)
     u = 1 + rng.random(m)
-    r = qpalm_tpu.solve(Q, A, q, -u, u, eps_abs=1e-6, eps_rel=1e-6,
+    r = qpalm_jax.solve(Q, A, q, -u, u, eps_abs=1e-6, eps_rel=1e-6,
                         verbose=False)
     assert r.info.status == "solved"
     assert float(r.info.run_time) > 0
@@ -399,7 +399,7 @@ def test_sparse_auto_cg_fallback_keeps_certificates():
     """A heavy-fill primal-infeasible problem routed to the CG path must
     still surface the Farkas certificate through HostResult (review
     finding: it was dropped in the repackaging)."""
-    from qpalm_tpu import solve_sparse_auto
+    from qpalm_jax import solve_sparse_auto
 
     rng = np.random.default_rng(1)
     n, m = 120, 80
@@ -437,7 +437,7 @@ def test_sparse_auto_selector():
     direct, random-sparsity Gram fill goes to the CG path (the sparse
     analogue of the reference's KKT-vs-Schur nnz selector,
     solver_interface.c:20-75)."""
-    from qpalm_tpu import solve_sparse_auto
+    from qpalm_jax import solve_sparse_auto
 
     rng = np.random.default_rng(0)
     n, m = 300, 120

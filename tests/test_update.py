@@ -4,9 +4,9 @@ qpalm_update_settings/bounds/q at qpalm.c:739-871)."""
 import numpy as np
 import pytest
 
-import qpalm_tpu
-from qpalm_tpu import QPALM, Settings
-from qpalm_tpu.validate import ValidationError
+import qpalm_jax
+from qpalm_jax import QPALM, Settings
+from qpalm_jax.validate import ValidationError
 
 from helpers import kkt_check, random_convex_qp
 

@@ -4,8 +4,8 @@ test_error_handling.c; validate.c:18-221)."""
 import numpy as np
 import pytest
 
-from qpalm_tpu import QPALM, Settings
-from qpalm_tpu.validate import ValidationError, validate_settings
+from qpalm_jax import QPALM, Settings
+from qpalm_jax.validate import ValidationError, validate_settings
 
 
 def _mk(**kw):

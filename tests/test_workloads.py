@@ -4,8 +4,8 @@ chain80w.m)."""
 
 import numpy as np
 
-from qpalm_tpu import Settings, solve
-from qpalm_tpu.workloads import (
+from qpalm_jax import Settings, solve
+from qpalm_jax.workloads import (
     SequentialMPC,
     lasso,
     mpc_chain,
